@@ -27,6 +27,12 @@ import numpy as np
 
 
 def main(argv=None):
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """Parse ``argv``, run the pipeline, write the outputs. Returns
+    (exit code, the engine after ``finish()``)."""
     ap = argparse.ArgumentParser(prog="bundlefusion_tpu")
     ap.add_argument("params", nargs="*", help="appParams [bundlingParams] [input]")
     ap.add_argument("--input", help=".sens file, TUM dir, or 'synthetic'")
@@ -40,10 +46,6 @@ def main(argv=None):
         "final model view, SiftVisualization analog) into --out",
     )
     args = ap.parse_args(argv)
-
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_cc")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.2")
 
     from bundlefusion_tpu.config import AppConfig, BundlingConfig, parse_parameter_file
     from bundlefusion_tpu.io.ply import save_ply
@@ -166,11 +168,11 @@ def main(argv=None):
 
     # ---- run ----
     eng = BundleFusion(intr, app, bundling, sift_cfg=sift_cfg, max_keyframes=max_keyframes)
-    eng.warmup()
+    compile_s = eng.warmup()
     t0 = time.perf_counter()
     n_done = 0
-    # frame i+1 uploads while frame i computes (the device link is slow;
-    # the analog of the reference's sensor-thread overlap)
+    # frame i+1 uploads while frame i computes (the analog of the
+    # reference's sensor-thread overlap)
     handle = None
     for depth, color in frames:
         nxt = eng.upload_frame(np.asarray(depth), np.asarray(color))
@@ -236,7 +238,9 @@ def main(argv=None):
         "numValidOptTransforms": n_valid,
         "numTransforms": n_done,
         "heapFreeCount": int(np.asarray(eng.table.free_count)),
+        "tsdfRowOverflows": int(np.asarray(eng.table.row_overflows)),
         "fps": n_done / elapsed if elapsed > 0 else 0.0,
+        "compile_s": compile_s,
     }
     if ate is not None:
         verdict["ate_rmse_m"] = ate
@@ -244,7 +248,7 @@ def main(argv=None):
         fh.write(json.dumps(verdict, indent=1))
     print(json.dumps(verdict))
     eng.timing.print_all_timings()
-    return 0 if valid_run else 1
+    return (0 if valid_run else 1), eng
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU BundleFusion engine.
+"""Typed configuration for the BundleFusion engine.
 
 The reference drives ~150 knobs through two text parameter files parsed into
 X-macro singletons (``GlobalAppState.h:24-104``, ``GlobalBundlingState.h:9-68``,
@@ -42,8 +42,8 @@ class AppConfig:
     top_n_active: int = 30                    # max active entries in reintegrate list
     # Pose-delta threshold for re-integration (s_minPoseDistSqrt). The
     # reference default is 0.0 ("reintegrate everything"), which keeps the
-    # GPU busy re-fusing frames whose solved pose moved by micrometers. On
-    # TPU the default is 1/4 voxel in the combined translation+2*rotation
+    # GPU busy re-fusing frames whose solved pose moved by micrometers. Here
+    # the default is 1/4 voxel in the combined translation+2*rotation
     # metric: deltas far below the voxel size cannot change the TSDF, and
     # skipping them frees the chip for real work. Set to 0.0 for exact
     # reference-parity scheduling.
@@ -59,7 +59,7 @@ class AppConfig:
     sdf_integration_weight_max: float = 99999999.0
     sdf_block_size: int = 8                   # SDF_BLOCK_SIZE (8^3 voxels per block)
     hash_num_sdf_blocks: int = 200000         # block capacity (voxel-data slots)
-    # key-table capacity; the TPU design uses a sorted key table, not buckets,
+    # key-table capacity; this design uses a sorted key table, not buckets,
     # so this is simply >= hash_num_sdf_blocks (the reference used 800K buckets)
     hash_key_capacity: int = 262144
 
@@ -90,10 +90,13 @@ class AppConfig:
     # mesh export
     marching_cubes_max_num_triangles: int = 3000000
 
-    # capacity knobs specific to the TPU design (fixed shapes under jit)
+    # capacity knobs specific to this design (fixed shapes under jit)
     max_frames: int = 12000                   # total frames retained for re-integration
     alloc_max_new_blocks_per_frame: int = 32768
-    visible_blocks_cap: int = 65536           # in-frustum compactified block cap
+    # frustum-active rows per pass of a TSDF op batch; more active rows run
+    # more passes, so the value trades padding against per-pass cost and
+    # never changes the result (PERF.md, "Kernel decisions")
+    visible_blocks_cap: int = 4096
 
 
 @dataclass(frozen=True)
@@ -186,7 +189,7 @@ class BundlingConfig:
     max_corr_per_image_min: int = 1000
     max_corr_per_image_max: int = 4000
 
-    # TPU-design capacities (fixed shapes)
+    # capacities of this design (fixed shapes)
     max_global_corr: int = 262144             # EntryJ store capacity (global)
     max_local_corr: int = 4096                # EntryJ store capacity (per submap)
     solver_max_pairs: int = 16384             # active (i, j) pair cap in the

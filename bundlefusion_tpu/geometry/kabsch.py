@@ -64,7 +64,7 @@ def sym3_eigenvalues(A):
 
     Trigonometric (Cardano) closed form — branch-free and batched, unlike
     LAPACK-style iterative ``eigvalsh`` which is slow for huge batches of
-    tiny matrices on TPU. Used by the greedy Kabsch filter's
+    tiny matrices. Used by the greedy Kabsch filter's
     condition-number checks (reference ``covarianceSVD`` eigenvalue ratios).
     """
     a00 = A[..., 0, 0]
@@ -96,7 +96,7 @@ def sym3_eigenvalues(A):
 def kabsch_fast(src, dst, weights, num_iters: int = 16):
     """Rigid alignment via Horn's quaternion method with power iteration.
 
-    TPU-friendly replacement for SVD-based Kabsch inside hot loops (the
+    Batched, branch-free replacement for SVD-based Kabsch inside hot loops (the
     greedy filter runs one fit per candidate per pair — thousands of tiny
     fits per frame): builds the 4x4 symmetric N-matrix from the weighted
     cross-covariance and extracts its top eigenvector (the optimal unit

@@ -1,4 +1,4 @@
-"""so(3)/se(3) Lie-group math in pure JAX (float32, TPU-safe).
+"""so(3)/se(3) Lie-group math in pure JAX (float32 throughout).
 
 The reference optimizes poses in Lie space (``USE_LIE_SPACE`` in
 ``GlobalDefines.h:12``) with hand-derived Rodrigues exp/log and analytic

@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-FORMAT_VERSION = 1
+# 2: the voxel table gained ``row_overflows`` and lost the 128-row rounding
+FORMAT_VERSION = 2
 
 
 def _pack_leaf(x):

@@ -7,7 +7,7 @@ resolutions, depth shift, frame count), then per-frame records of
 {camera-to-world 4x4, timestamps, compressed color (JPEG) + depth
 (zlib uint16)}. The optimized trajectory is written back into the same file
 at scan end (``saveToFile``, SensorDataReader.cpp:153-166). This module
-implements that format standalone (numpy + zlib + cv2 for JPEG).
+implements that format standalone (numpy + zlib; cv2 only for JPEG color).
 """
 
 from __future__ import annotations
@@ -98,7 +98,9 @@ class SensData:
                 self.color_height, self.color_width, -1
             )[..., :3]
         else:
-            import cv2
+            from bundlefusion_tpu.io import require_cv2
+
+            cv2 = require_cv2()
 
             img = cv2.imdecode(
                 np.frombuffer(fr.color_bytes, np.uint8), cv2.IMREAD_COLOR
@@ -188,7 +190,9 @@ def encode_frames(depths: np.ndarray, colors: np.ndarray, poses: np.ndarray, int
     """Pack numpy depth [N, H, W] (meters) + color [N, H, W, 3] (0..1) +
     poses into a SensData (zlib depth, JPEG color) — used for recording
     (reference ``RGBDSensor::saveRecordedFramesToFile``) and tests."""
-    import cv2
+    from bundlefusion_tpu.io import require_cv2
+
+    cv2 = require_cv2()
 
     K = np.eye(4, dtype=np.float32)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = intr.fx, intr.fy, intr.cx, intr.cy

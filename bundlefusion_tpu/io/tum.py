@@ -75,7 +75,9 @@ class TumSequence:
 
     def frame(self, i: int):
         """(depth [H,W] float32 m, color [H,W,3] float32, gt_pose or None)."""
-        import cv2
+        from bundlefusion_tpu.io import require_cv2
+
+        cv2 = require_cv2()
 
         td, dpath = self.depth_files[i]
         d = cv2.imread(os.path.join(self.root, dpath), cv2.IMREAD_UNCHANGED)

@@ -1,6 +1,6 @@
 """Match-filter cascade: greedy Kabsch -> surface area -> dense verify.
 
-TPU re-design of the reference's three-stage correspondence filter
+Fixed-shape re-design of the reference's three-stage correspondence filter
 (``SIFTImageManager.cu``: ``FilterKeyPointMatchesCU:186-263`` via
 ``cuda_kabsch.h:422-506``, ``FilterMatchesBySurfaceAreaCU:318-391`` via
 ``cuda_surfaceArea.h``, ``FilterMatchesByDenseVerifyCU:491-606``). Each
@@ -325,8 +325,8 @@ def _proj_error_one_way(
     inb = (u >= 0) & (u < intr.width) & (v >= 0) & (v < intr.height) & (z > 0)
     uc = jnp.clip(u, 0, intr.width - 1)
     vc = jnp.clip(v, 0, intr.height - 1)
-    # one-hot MXU resample instead of per-pixel gathers (the gathers
-    # dominated verification cost on TPU); sanitize before stacking
+    # one-hot matmul resample of the depth/normal/color planes; sanitize
+    # before stacking
     from bundlefusion_tpu.ops.resample import onehot_gather2d
 
     ok_md = (

@@ -1,6 +1,6 @@
 """Depth/color image preprocessing ops.
 
-TPU-native equivalents of the reference's ``CUDAImageUtil`` kernel set
+Equivalents of the reference's ``CUDAImageUtil`` kernel set
 (``CUDAImageUtil.h:10-42``): resampling, depth erosion, bilateral depth
 filtering, camera-space conversion, normal estimation, intensity conversion
 and derivatives. All are jittable pure functions on [H, W(, C)] float32
@@ -23,8 +23,8 @@ def resample_nearest(img, new_h: int, new_w: int):
     us = (jnp.arange(new_w) + 0.5) * (W / new_w) - 0.5
     vi = jnp.clip(jnp.round(vs).astype(jnp.int32), 0, H - 1)
     ui = jnp.clip(jnp.round(us).astype(jnp.int32), 0, W - 1)
-    # two axis-wise takes (fast row/col gathers) instead of one general
-    # outer-product gather, which XLA lowers element-by-element on TPU
+    # two axis-wise takes (row then column gathers) instead of one general
+    # outer-product gather
     return jnp.take(jnp.take(img, vi, axis=0), ui, axis=1)
 
 
@@ -176,7 +176,7 @@ def reproject_depth_to_color(
     (``CUDAImageCalibrator`` analog — the reference rasterizes the depth
     point cloud through DX11 when ``s_bUseCameraCalibration`` is on).
 
-    TPU design: unproject depth-camera pixels, transform by the
+    Design: unproject depth-camera pixels, transform by the
     depth-to-color extrinsics, z-buffer into the color image with one
     packed scatter-min (depth-quantized key | source index), then fill
     sub-pixel holes with 3x3 valid-neighbor passes.

@@ -1,4 +1,4 @@
-"""Batched SIFT descriptor matching on the MXU.
+"""Batched SIFT descriptor matching as matrix products.
 
 Replaces the reference's descriptor-matching kernels
 (``ProgramCU.cu``: ``MultiplyDescriptor_Kernel:1634`` (all-pairs dot
@@ -8,10 +8,10 @@ with distance + ratio tests), driven by ``SiftMatchGPU::GetSiftMatch``
 capped at MAX_MATCHES_PER_IMAGE_PAIR_RAW = 128 sorted matches) and the
 per-pair sort kernel ``SortKeyPointMatchesCU`` (SIFTImageManager.cu:59-143).
 
-TPU design: descriptors are unit vectors; the [K, 128] x [128, K] similarity
-matrix is one MXU matmul per pair (batched over pairs in a single
-[P*K, 128] x [128, K] or [P, K, 128] einsum — this is exactly the shape the
-MXU wants). Distance = sqrt(2 - 2 dot). Mutual-best + distance + ratio tests
+Design: descriptors are unit vectors; the [K, 128] x [128, K] similarity
+matrix is one matmul per pair (batched over pairs in a single
+[P*K, 128] x [128, K] or [P, K, 128] einsum, in bf16 with float32
+accumulation — a tensor-core shape). Distance = sqrt(2 - 2 dot). Mutual-best + distance + ratio tests
 are row/col argmax reductions; top-128 sort via ``lax.top_k``.
 """
 
@@ -56,7 +56,7 @@ def match_descriptors_pair(
     Output is the top ``num_matches`` by ascending distance.
     """
     big = jnp.float32(1e9)
-    # bf16 is plenty for descriptor dot products and hits the MXU fast path
+    # bf16 is plenty for descriptor dot products and runs on the tensor cores
     sim = jnp.dot(
         desc_i.astype(jnp.bfloat16),
         desc_j.astype(jnp.bfloat16).T,

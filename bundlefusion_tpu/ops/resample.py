@@ -1,18 +1,16 @@
-"""Projective-association sampling without gathers (MXU one-hot resample).
+"""Projective-association sampling without gathers (one-hot resample).
 
-XLA lowers per-pixel image gathers (``img[vi, ui]``) on TPU to an
-element-by-element path measured at ~12 ns/element; the dense BA term and
-dense verification each associate ~5K pixels x many channels x many pairs
-per solve, which made the gathers the dominant solver cost (tens of ms).
+The dense BA term and dense verification each associate ~5K pixels x many
+channels x many pairs per solve. ``onehot_gather2d`` samples them with two
+separable one-hot contractions instead of per-pixel gathers
+(``img[vi, ui]``):
 
-``onehot_gather2d`` replaces them with two separable one-hot contractions:
-
-    tmp[p, c, h] = sum_w onehot_u[p, w] * stack[c, h, w]   (MXU)
-    out[p, c]    = sum_h tmp[p, c, h] * onehot_v[p, h]     (VPU)
+    tmp[p, c, h] = sum_w onehot_u[p, w] * stack[c, h, w]   (matmul)
+    out[p, c]    = sum_h tmp[p, c, h] * onehot_v[p, h]     (elementwise)
 
 Selection is exact (every reduction has exactly one nonzero addend); at
-cache resolution (80x60, C~9, P~5K, 64 pairs) the batched matmul costs
-~13 GFLOP -> a fraction of a millisecond on the MXU.
+cache resolution (80x60, C~9, P~5K, 64 pairs) the batched matmul is ~13
+GFLOP. Its time on the GPU against a plain gather is not measured.
 
 Used by the dense point-to-plane term (``solver/dense_term.py``,
 reference ``findDenseCorr`` in SolverBundlingDenseUtil.h) and the dense
@@ -45,7 +43,7 @@ def onehot_gather2d(stack, vi, ui, valid):
     P = u1.shape[0]
     oh_u = (u1[:, None] == jnp.arange(W)[None, :]).astype(jnp.float32)
     oh_v = (v1[:, None] == jnp.arange(H)[None, :]).astype(jnp.float32)
-    # [P, W] x [C, H, W] -> [P, C, H] (one MXU matmul over the W contraction)
+    # [P, W] x [C, H, W] -> [P, C, H] (one matmul over the W contraction)
     tmp = jnp.einsum(
         "pw,chw->pch", oh_u, stack, precision=jax.lax.Precision.HIGHEST
     )

@@ -1,4 +1,4 @@
-"""SIFT-style keypoint detection + 128-d descriptors, TPU-native.
+"""SIFT-style keypoint detection + 128-d descriptors in JAX.
 
 Behavioral equivalent of the reference's SiftGPU subsystem
 (``SiftPyramid.cpp:148-230``: BuildPyramid -> DetectKeypoints ->
@@ -8,7 +8,7 @@ detection with depth-range rejection (:616), orientation histogram (:905),
 4x4x8 descriptor (:1178, normalize :1339), per-key depth attach
 (``CreateGlobalKeyPointList:2049``)).
 
-TPU design: everything is fixed-shape. The pyramid is dense conv work
+Design: everything is fixed-shape. The pyramid is dense conv work
 (XLA-friendly); per-keypoint stages (orientation, descriptor) gather fixed
 16x16 sample grids scaled by keypoint scale and rotated by orientation —
 scale-adaptive windows with static shapes — and are ``vmap``ed over a fixed
@@ -65,9 +65,9 @@ def _gauss_kernel1d(sigma: float):
 def _sep_conv(img, k):
     """Separable 2D blur as shift-and-add with edge-clamp padding.
 
-    A 1-channel ``conv_general_dilated`` is pathological on TPU (XLA pads
-    the channel dim to 128 for the MXU); 2*(2r+1) shifted-scaled adds on the
-    VPU are ~500x cheaper for these small kernels.
+    2*(2r+1) shifted-scaled adds that XLA fuses into one elementwise pass,
+    in place of a 1-channel ``conv_general_dilated`` for these small
+    kernels.
     """
     r = (k.shape[0] - 1) // 2
     kw = [float(k[i]) for i in range(k.shape[0])]
@@ -178,13 +178,7 @@ def _detect_octave(dog, cfg: SiftConfig, octave: int):
     resp = jnp.stack(resp_all)  # [S, H, W]
     flat = resp.reshape(-1)
     C = cfg.max_candidates_per_octave
-    if flat.shape[0] > 8 * C and jax.default_backend() == "tpu":
-        # TPU-native approximate top-k: exact top_k over ~1M elements costs
-        # milliseconds; candidate selection tolerates the ~1% recall loss
-        # (the response threshold governs quality, not exact ordering)
-        top_resp, top_idx = jax.lax.approx_max_k(flat, C, recall_target=0.99)
-    else:
-        top_resp, top_idx = jax.lax.top_k(flat, C)
+    top_resp, top_idx = jax.lax.top_k(flat, C)
     s_idx = top_idx // (Hh * Ww) + 1
     rem = top_idx % (Hh * Ww)
     yy = rem // Ww
@@ -220,11 +214,7 @@ def _bilinear_flat(flat, base, W, H, x, y):
     y0i = jnp.clip(y0.astype(jnp.int32), 0, H - 1)
     x1i = jnp.minimum(x0i + 1, W - 1)
     y1i = jnp.minimum(y0i + 1, H - 1)
-    # jnp.take(mode="clip") rather than advanced indexing: the 2-D
-    # advanced-index gather lowering leaves the device runtime's
-    # host->device transfer path degraded ~50x for the remainder of the
-    # process (measured: 1.4 ms -> 70 ms per 1.5 MB upload after ONE
-    # execution); take(mode="clip") lowers to a form that does not
+    # flat 1-D takes with clipped indices: one element gather per corner
     a = jnp.take(flat, base + y0i * W + x0i, mode="clip")
     b = jnp.take(flat, base + y0i * W + x1i, mode="clip")
     c = jnp.take(flat, base + y1i * W + x0i, mode="clip")
@@ -248,7 +238,7 @@ def _orientations(gm_flat, go_flat, base, W, H, x, y, sigma_local):
     sig_w = (1.5 * sigma_local)[:, None]
     w = m * jnp.exp(-r2 / (2 * sig_w * sig_w * 4.0))
     bins = jnp.floor(o / (2 * jnp.pi) * 36.0).astype(jnp.int32) % 36
-    # scatter-free histogram: one-hot contraction on the MXU
+    # scatter-free histogram: one-hot contraction (a matmul)
     hist = jnp.einsum(
         "ks,ksb->kb", w, jax.nn.one_hot(bins, 36, dtype=jnp.float32)
     )                                                      # [K, 36]

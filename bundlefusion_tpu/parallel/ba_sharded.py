@@ -1,10 +1,9 @@
 """Multi-chip sharded bundle adjustment + matching.
 
 The reference's only "multi-device" story is two GPUs in one process with
-cudaMemcpy (``DualGPU.h``). The TPU design scales the *global* problem over a
-device mesh (BASELINE.json north star: keyframe chunks and correspondences
-partitioned over devices, per-device reduced-system partials combined with
-XLA collectives over ICI):
+cudaMemcpy (``DualGPU.h``). This design scales the *global* problem over a
+device mesh (keyframe chunks and correspondences partitioned over devices,
+per-device reduced-system partials combined with XLA collectives):
 
 - **Correspondence sharding (BA)**: the EntryJ store is sharded along the
   corr axis; poses are replicated. Each device sorts ITS corr shard by pair
@@ -16,22 +15,21 @@ XLA collectives over ICI):
   sparse energy has NO landmark variables
   (``SolverBundlingEquationsLie.h:42-57``), the "distributed Schur
   complement" reduces to concatenating per-device pair-block partials —
-  one small all-gather per GN iteration riding ICI (a pair split across a
+  one small all-gather per GN iteration (a pair split across a
   shard boundary simply contributes two additive blocks).
 - **Keyframe sharding (matching)**: previous keyframes' descriptors are
   sharded across devices; the current keyframe is replicated; each device
-  runs the MXU matcher against its shard (embarrassingly parallel).
+  runs the matmul matcher against its shard (embarrassingly parallel).
 
 Single-chip ``solver.gn_pcg.solve_sparse`` and this module share the same
 math (``build_sparse_pair_system`` / ``make_pair_seg`` segment reductions /
 the PCG body); this module wraps the stages in ``shard_map`` over a 1-D
 mesh.
 
-The round-2 design psum-ed a scatter-add J/JT rebuild per PCG iteration
-(O(C*. ) work + a collective per linear iteration) and measured 0.07
-weak-scaling efficiency at 8 devices; this design moves all O(C) work
-before the gather and was measured >=0.5 at 8 virtual CPU devices on a
-2-core host (see SCALING.json).
+All O(C) work happens before the one gather per GN iteration, so the PCG
+iterations need no collective (a psum-ed scatter-add J/JT rebuild per PCG
+iteration would add O(C) work and a collective to every linear step).
+Scaling on GPUs is not measured.
 """
 
 from __future__ import annotations

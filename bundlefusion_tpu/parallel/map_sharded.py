@@ -2,7 +2,7 @@
 §2.8 north-star axis: "map-block sharding + host offload").
 
 Reference spatial analog: ``CUDASceneRepChunkGrid.h:142-210`` pages cold
-TSDF blocks GPU<->CPU around the camera; the TPU-native scale-out of the
+TSDF blocks GPU<->CPU around the camera; the device-mesh scale-out of the
 same axis shards the voxel-block PAYLOAD across a device mesh.
 
 Design (dryrun scope, single-writer allocation):
@@ -21,9 +21,9 @@ Design (dryrun scope, single-writer allocation):
   host).
 - Capacity argument for when NOT to shard: at the reference operating
   point (200K 8^3 blocks, ``zParametersDefault.txt:39-49``) the payload is
-  ~1.2 GB — one chip's HBM holds the whole apt-scale map, and the engine
+  ~2 GB — one card's memory holds the whole apt-scale map, and the engine
   additionally pages cold blocks to host RAM (``tsdf/streaming.py``).
-  Map sharding is the growth axis beyond single-chip HBM, not a
+  Map sharding is the growth axis beyond one card's memory, not a
   requirement at apt scale.
 
 Equivalence is tested on the virtual 8-device CPU mesh
@@ -40,7 +40,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from bundlefusion_tpu.geometry.camera import CameraIntrinsics
-from bundlefusion_tpu.tsdf.apply_pallas import apply_tsdf_ops_rows
+from bundlefusion_tpu.tsdf.apply_ops import apply_tsdf_ops_rows
 from bundlefusion_tpu.tsdf.integrate import TsdfParams
 from bundlefusion_tpu.tsdf.table import VoxelBlockTable
 
@@ -77,6 +77,7 @@ def shard_table_payload(
         free_count=jax.device_put(table.free_count, rep),
         num_alloc_failures=jax.device_put(table.num_alloc_failures, rep),
         high_water=jax.device_put(table.high_water, rep),
+        row_overflows=jax.device_put(table.row_overflows, rep),
     )
 
 

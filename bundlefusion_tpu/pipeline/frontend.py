@@ -155,8 +155,8 @@ def match_and_filter(
         # sequentially (slot g is the g-th keyframe), so chunks entirely
         # above ``cur_slot`` can contribute nothing — skipping them makes
         # the O(G) match + filter cascade cost O(live keyframes) instead of
-        # O(capacity) (125 ms -> ~15 ms per boundary at the reference
-        # G=1200 capacity with ~100 live). The reference's loop over
+        # O(capacity) at the reference G=1200 capacity with ~100 live
+        # keyframes. The reference's loop over
         # previous frames has the same live-count cost (Bundler.cpp:112).
         CB = 128
         P = keys.capacity

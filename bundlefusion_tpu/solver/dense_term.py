@@ -14,7 +14,7 @@ Re-design of the reference's ``BuildDenseSystem`` path
    depth residual (+ photometric intensity residual with gradient gating),
    accumulating 6x6 JtJ blocks and Jtr into the global camera system.
 
-TPU design: pairs are a fixed-capacity masked list; per-pair per-pixel
+Design: pairs are a fixed-capacity masked list; per-pair per-pixel
 residuals and exact Jacobians (``jax.jacfwd`` of the pixel residual in the
 12 pose parameters) are reduced on-device into per-pair [12, 12] / [12]
 blocks; the PCG matvec applies them with gathers + segment-sums — no global
@@ -102,7 +102,7 @@ def find_overlapping_pairs(
     # [N^2, h', w', 3] — 35 GB at the reference capacity N=1200. lax.map
     # serializes fixed-size chunks, bounding the intermediate to
     # [CH, h', w', 3] (~30 MB) while keeping each chunk wide enough to
-    # fill the VPU.
+    # fill the device.
     P_all = N * N
     CH = min(16384, P_all)
     n_chunks = -(-P_all // CH)
@@ -158,8 +158,8 @@ def _pair_residuals(pose_i, pose_j, campos_i, normal_i, inten_i,
     ui = jnp.clip(jnp.round(u).astype(jnp.int32), 0, intr.width - 1)
     vi = jnp.clip(jnp.round(v).astype(jnp.int32), 0, intr.height - 1)
     inb = (u >= 0) & (u <= intr.width - 1) & (v >= 0) & (v <= intr.height - 1) & (z > 0)
-    # projective association via one-hot MXU resample (per-pixel gathers
-    # are the dominant solver cost on TPU); samples are constants wrt the
+    # projective association via one-hot resample (ops/resample.py);
+    # samples are constants wrt the
     # poses within a GN iteration, exactly like the reference's Jacobian
     from bundlefusion_tpu.ops.resample import onehot_gather2d
 

@@ -12,7 +12,7 @@ Re-design of the reference GPU solver (``Solver/SolverBundling.cu``,
   |alpha_num| < 5e-7 (``SolverBundling.cu:1088-1093``) and GN early-out
   max|delta| < 0.005 (``EvalGNConvergence:694-749``).
 
-TPU design — **pair-reduced systems** (the scalable replacement for both
+Design — **pair-reduced systems** (the scalable replacement for both
 the reference's per-PCG-iteration J/J^T kernels over a variables->corrs
 table, CUDASolverBundling.cpp:286, and this module's former [C, N] one-hot
 incidence matmuls, which cost O(C*N) memory/FLOPs per PCG step):
@@ -20,15 +20,13 @@ incidence matmuls, which cost O(C*N) memory/FLOPs per PCG step):
 1. once per solve: sort correspondences by pair id (img_i * N + img_j);
 2. once per GN iteration: per-corr residuals + exact ``jax.jacfwd``
    Jacobian blocks, then a segment reduction over the sorted runs (one
-   cumulative sum + two row-gathers at segment boundaries — both fast on
-   TPU) into per-pair 12x12 JtJ blocks and 12-vector Jtr, exactly like the
+   cumulative sum + two row-gathers at segment boundaries) into per-pair 12x12 JtJ blocks and 12-vector Jtr, exactly like the
    dense term's ``DensePairSystem``;
 3. per PCG iteration: O(P) matvecs — two [P, 6] pose gathers, one
    [P, 12, 12] block contraction, and two SORTED segment reductions back
    into per-pose rows (``PairSeg``). No [P, N] incidence materializes:
-   at the capacity regime (P = 131072 pairs, N = 640+ keyframes) the
-   round-4 one-hot form read ~670 MB of HBM per PCG iteration and was
-   the dominant super-linear boundary cost.
+   at the capacity regime (P = 131072 pairs, N = 640+ keyframes) a
+   one-hot form would read ~670 MB per PCG iteration.
 
 Block-Jacobi preconditioning (6x6 per pose, a strict upgrade over the
 reference's diagonal), fixed shapes throughout, invalid corrs carry zero
@@ -55,9 +53,9 @@ _BIG = jnp.int32(2**31 - 1)
 def _chunk_size(C: int) -> int | None:
     """Chunk length for capacity-C passes, or None for a single pass.
 
-    Large chunks matter: the round-4 passes used fixed 16384-corr chunks,
-    which at the 2^23 capacity store meant 512 sequential loop iterations
-    of tiny work per reduction — loop overhead, not bandwidth. A chunk of
+    Large chunks matter: fixed 16384-corr chunks would mean 512
+    sequential loop iterations of tiny work per reduction at the 2^23
+    capacity store — loop overhead, not bandwidth. A chunk of
     262144 keeps transient buffers (per-corr Jacobians etc.) tens of MB
     while cutting the sequential depth 16x."""
     for kb in (262144, 65536, 16384):
@@ -282,8 +280,8 @@ def sort_corrs_by_pair(
     ``working``: optional live-corr working capacity. When smaller than the
     store, live corrs are COMPACTED (one cumsum pass) into a [working]
     array before sorting, so the argsort + order-gathers scale with the
-    working set instead of store capacity (262144 at reference defaults —
-    the full-capacity sort alone cost ~15 ms per solve). On overflow (live
+    working set instead of store capacity (262144 at reference defaults).
+    On overflow (live
     > working) the selection switches to a pair-budgeted ranking that keeps
     every pair's newest corrs (see ``_ranked_working_indices``); the
     excess is surfaced in ``dropped``.
@@ -292,15 +290,14 @@ def sort_corrs_by_pair(
     (``add_to_residuals`` appends the current frame's pairs with ascending
     previous index, boundaries have ascending current index, and
     compactions are stable), so a one-pass monotonicity check usually
-    replaces the argsort entirely — a TPU sort of a multi-million-entry
-    working set costs hundreds of ms per solve. Revalidation appends (old
+    replaces the argsort of a multi-million-entry working set. Revalidation appends (old
     keyframes re-matching) break monotonicity and fall back to the real
     sort.
 
     The working window is a STATIC SLICE of the store's first ``working``
     rows (the append cursor rarely passes it between the engine's periodic
-    compactions), not a live-compaction: the full-capacity ``jnp.nonzero``
-    compaction alone cost ~700 ms per boundary at the 2^23 capacity store.
+    compactions), not a live-compaction: it avoids a full-capacity
+    ``jnp.nonzero`` compaction of the 2^23 capacity store per boundary.
     Invalidation holes inside the window are tolerated: segment
     construction FILLS each hole with the enclosing pair id (cummax), so a
     pair id still maps to exactly one segment (the unique-index contract
@@ -468,10 +465,9 @@ def build_sparse_pair_system(poses, sc: SortedCorrs, w_sqrt, n_live=None):
 class PairSeg(NamedTuple):
     """Segment structure for pair->pose reductions, built once per solve.
 
-    Replaces the former [P, N] one-hot incidence matmuls: at the capacity
-    regime (P = 131072 pairs, N = 640 keyframes) the two one-hots cost
-    ~670 MB of HBM and every PCG iteration re-read them — the dominant
-    super-linear boundary cost in the round-4 capacity run. The
+    Replaces [P, N] one-hot incidence matmuls: at the capacity regime
+    (P = 131072 pairs, N = 640 keyframes) the two one-hots would take
+    ~670 MB, re-read by every PCG iteration. The
     segment-sum form is O(P) per matvec: two [P, 6] gathers, one
     [P, 12, 12] block contraction, two sorted segment reductions.
     """
@@ -597,8 +593,7 @@ def _pair_precond(H, ps: PairSeg, N: int):
 
 class PresortedProblem(NamedTuple):
     """One solve's sorted correspondence structure, reusable across the
-    residual-pruning rounds of a submap boundary (the round-4 design
-    re-sorted the full store once per prune round; pruning only flips
+    residual-pruning rounds of a submap boundary (pruning only flips
     validity bits, the sort order never changes)."""
 
     sc: SortedCorrs
@@ -609,8 +604,7 @@ class PresortedProblem(NamedTuple):
                         # so it stays a correct bound)
     inv_i: jax.Array    # [N*N] flat (i, j) -> pair index (P = none); the
                         # dense-assembly GATHER maps (built once per solve;
-                        # a scatter-assembled [6N, 6N] cost ~22 ms per
-                        # scatter on this target, the gather form ~1 ms)
+                        # they replace scatter-assembling the [6N, 6N])
     inv_j: jax.Array    # [N*N] flat (j, i) -> pair index
 
 
@@ -661,23 +655,22 @@ def _dense_reduced_solve(
     """Assemble the reduced camera system A = J^T J [6N, 6N] from the
     per-pair 12x12 blocks and solve A delta = -J^T r DIRECTLY (LU).
 
-    TPU-idiomatic replacement for the PCG inner loop when N is moderate
-    (<= ~2048 poses): on this target a 150-iteration matrix-free PCG costs
-    ~10 device ops per iteration and per-op overhead dominates (~150 ms
-    per solve measured at the capacity operating point), while a 3840x3840
-    LU solve runs in ~10 ms on the MXU. The reference's PCG
-    (``SolverBundling.cu:1024-1108``) is a GPU-shaped choice, not part of
-    the behavioral contract — the energy and the GN outer loop are.
+    Replacement for the PCG inner loop when N is moderate (<= ~2048
+    poses): a 150-iteration matrix-free PCG issues ~10 small device ops
+    per iteration, while the direct solve is one dense factorization of
+    at most 3840x3840 (N = 640). Which is faster on the GPU is not
+    measured. The reference's PCG (``SolverBundling.cu:1024-1108``) is an
+    implementation choice, not part of the behavioral contract — the
+    energy and the GN outer loop are.
 
     Assembly: off-diagonal (i, j) blocks are unique per pair, so the
     [N, N] block grid is GATHERED through the precomputed inverse maps
-    (``_pair_inverse_maps``) — a scatter-add form cost ~22 ms per scatter
-    on this target, the gathers ~1 ms. Diagonal blocks are the
-    block-Jacobi reduction we already have. LU (``jnp.linalg.solve``) and
-    not Cholesky: this target's Cholesky custom call MISCOMPILES when a
-    program contains more than one factorization chain (first chain's
-    inputs read as zero — reproduced and isolated; LU is correct in the
-    same program shapes). Fixed/invalid poses and poses with empty
+    (``_pair_inverse_maps``) instead of scatter-added. Diagonal blocks are
+    the block-Jacobi reduction we already have. LU (``jnp.linalg.solve``)
+    and not Cholesky: an earlier build saw a Cholesky custom call
+    miscompile when a program held more than one factorization chain
+    (the first chain's inputs read as zero); LU was correct in the same
+    program shapes. Fixed/invalid poses and poses with empty
     diagonal blocks get identity rows/cols so their delta is exactly 0.
     """
     P = H.shape[0]
@@ -737,9 +730,9 @@ def solve_sparse_presorted(
 
     if use_dense:
         # unrolled (num_gn is static and small): a rolled fori_loop is the
-        # shape in which this target's factorization miscompile manifested.
-        # Converged iterations are cond-skipped — a GN step costs ~60 ms at
-        # capacity scale and the steady state converges in one.
+        # shape in which the factorization miscompile above manifested.
+        # Converged iterations are cond-skipped — the steady state
+        # converges in one GN step.
         done = jnp.asarray(False)
         p = poses
 
@@ -881,9 +874,9 @@ def apply_pair_kill_sorted(
 def corr_counts_per_frame_sorted(prob: PresortedProblem, num_frames: int):
     """Per-frame live-corr counts over the presorted WORKING set (the
     ``CheckForInvalidFrames`` input). The full-store twin
-    (``residuals.corr_counts_per_frame``) scatter-adds over store capacity
-    — ~700 ms per boundary at the 2^23 capacity store on this target; this
-    form does chunked SORTED segment sums over the live prefix (~10 ms).
+    (``residuals.corr_counts_per_frame``) scatter-adds over the whole
+    store capacity (2^23 in the capacity run); this form does chunked
+    SORTED segment sums over the live prefix only.
     Counts only cover the working set the solver actually saw — consistent
     with the reference, which counts over the solver's residual set
     (``CUDASolverBundling``'s corr table)."""

@@ -4,7 +4,7 @@ The reference keeps a growing global array of ``EntryJ{imgIdx_i, imgIdx_j,
 pos_i, pos_j}`` residuals built from filtered SIFT matches
 (``SIFTImageManager.h:45-60``, ``AddCurrToResidualsCU:610-687``) and a
 variables->correspondences table for the solver
-(``CUDASolverBundling.cpp:286``). On TPU the store is a fixed-capacity
+(``CUDASolverBundling.cpp:286``). Here the store is a fixed-capacity
 structure-of-arrays with -1 image indices marking invalid entries; the
 corr table is unnecessary because J^T is applied with segment-sums.
 """
@@ -114,7 +114,7 @@ def compact_corrs(store: CorrStore) -> CorrStore:
 
     The reference's residual store is append-only (``AddCurrToResidualsCU``
     bump-allocates; invalidation only marks ``imgIdx_i = -1``), so a long
-    run with heavy pruning leaks capacity. The sorted/masked TPU design
+    run with heavy pruning leaks capacity. The sorted/masked design
     makes reclamation one fixed-shape pass: stable-compact the live rows,
     zero the tail, drop the cursor to the live count. Callers run this
     when ``count`` approaches capacity."""

@@ -8,7 +8,7 @@ integrate/de-integrate voxel update (``integrateDepthMapKernel<bool
 deIntegrate>:420-521``) — the signed-weight twist that enables BundleFusion's
 on-the-fly re-integration.
 
-TPU design notes:
+Design notes:
 - de-integration is the same program with ``sign=-1``; colors are stored
   premultiplied by weight so subtraction is the exact inverse of addition.
 - all stages are fixed-shape: candidate blocks are deduped by sort, visible
@@ -139,8 +139,7 @@ def candidate_keys(
 
     Fused fast path of :func:`candidate_blocks` + ``pack_block_coords``:
     computes the packed 30-bit key directly from world positions with one
-    float multiply + floor per axis (no int32 ``floor_divide``, which has
-    no hardware path on the VPU). Returns [M] int32 with EMPTY_KEY for
+    float multiply + floor per axis (no int32 ``floor_divide``). Returns [M] int32 with EMPTY_KEY for
     invalid entries; duplicates arrive in runs, ready for the run-dedup in
     :func:`bundlefusion_tpu.tsdf.table.allocate_packed`.
     """
@@ -329,18 +328,6 @@ def integrate_frame(
     )
 
 
-def _use_pallas() -> bool:
-    """Pallas kernel on TPU; pure-XLA twin elsewhere (tests compare them)."""
-    import os
-
-    force = os.environ.get("BF_TSDF_KERNEL", "")
-    if force == "pallas":
-        return True
-    if force == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
 @partial(
     jax.jit,
     static_argnames=("intr", "params", "cap"),
@@ -375,8 +362,8 @@ def integrate(
 
     The caller's table buffers are donated (updated in place on device);
     hold no references to the old table after calling. This is the simple
-    single-op XLA path (tests / offline tooling); the online pipeline uses
-    the fused in-place kernel in ``apply_pallas.py``.
+    single-op path (tests / offline tooling); the online pipeline applies a
+    frame's whole op batch at once through ``apply_ops.py``.
     """
     return _integrate_impl(table, depth, color, intr, cam_to_world, params, cap)
 

@@ -3,7 +3,7 @@
 The reference extracts a triangle mesh per compactified voxel block with
 classic marching-cubes tables and atomic triangle appends
 (``CUDAMarchingCubesHashSDF.*``, ``MarchingCubesSDFUtil.h:26-90``,
-``Tables.h``). The TPU design uses **marching tetrahedra** (each cube split
+``Tables.h``). This design uses **marching tetrahedra** (each cube split
 into 6 tetrahedra): the per-tet case logic is branch-free arithmetic instead
 of a 256-entry lookup table, which maps cleanly onto vectorized masked
 compute, and produces a topologically consistent zero-isosurface of the same

@@ -6,7 +6,7 @@ produced by rasterizing block AABBs through DX11 ("ray interval splatting",
 ``rayIntervalSplatKernel``), zero-crossing detection, bisection refine,
 trilinear SDF/color interpolation (``RayCastSDFUtil.h:97-303``).
 
-TPU design: rasterization-based splatting is replaced by a **dense local
+Design: rasterization-based splatting is replaced by a **dense local
 block-index grid**: a [D^3] int32 volume centered on the camera that maps
 block coords -> voxel slot, built in one scatter pass over the key table.
 Ray marching then needs only direct grid indexing (no hash probe, no

@@ -1,17 +1,15 @@
-"""Surface-splat renderer: the TPU-native per-frame visualization.
+"""Surface-splat renderer: the per-frame visualization.
 
 The reference renders every frame by per-pixel ray marching through the
 voxel hash, accelerated by rasterizing block AABBs into per-pixel depth
 intervals on DX11 ("ray interval splatting", ``CUDARayCastSDF.cu:101-190``
-+ ``renderKernel``). A per-pixel march is gather-bound on TPU: XLA element
-gathers run at ~90M indices/s on v5e, so 320x240 rays x ~100 samples each
-costs hundreds of ms (measured 600+ ms/frame). This module takes the
-reference's splatting idea to completion instead — rasterize the *surface
-itself*:
++ ``renderKernel``). A per-pixel march does 320x240 rays x ~100 dependent
+element gathers each. This module takes the reference's splatting idea to
+completion instead — rasterize the *surface itself*:
 
-1. frustum-cull blocks on the [num_blocks] slot-geometry rows (VPU),
+1. frustum-cull blocks on the [num_blocks] slot-geometry rows,
    compact visible slot ids (one fixed-size nonzero);
-2. row-gather the visible blocks' payload (row DMAs, fast — unlike
+2. row-gather the visible blocks' payload (contiguous rows, unlike
    element gathers);
 3. find sub-voxel surface crossings along in-block voxel runs oriented
    along the dominant view axis (pure vectorized sign-change detection —
@@ -20,7 +18,7 @@ itself*:
 4. project all crossings and z-buffer them with ONE packed-key
    ``scatter-min`` (depth-quantized key | sample index), then gather the
    winners' attributes;
-5. fill sub-pixel holes with two 3x3 valid-neighbor passes (VPU rolls).
+5. fill sub-pixel holes with two 3x3 valid-neighbor passes (rolls).
 
 Output contract matches :func:`bundlefusion_tpu.tsdf.raycast.raycast`:
 ``depth`` / ``points`` / ``normals`` (camera space) / ``color``, nan where
@@ -63,9 +61,9 @@ def _run_crossings(sdf, w, axis_reshape, extras=()):
       axis_reshape: callable mapping [V, 512] -> [V, 64, 8] so that the
         last dim walks the chosen axis.
       extras: additional [V, 512] channels to select at the crossing's low
-        voxel with the same one-hot (pure VPU — the winner-attribute path
-        previously element-gathered weight/color from the FULL table with
-        2-D dynamic indices, ~12 ms/frame at 320x240).
+        voxel with the same one-hot (elementwise, instead of
+        element-gathering weight/color from the FULL table with 2-D
+        dynamic indices).
 
     Returns (valid [V, 64], frac [V, 64] crossing offset in [0, 7],
     lin_lo [V, 64] linear voxel index of the crossing's low voxel,
@@ -84,7 +82,7 @@ def _run_crossings(sdf, w, axis_reshape, extras=()):
     pos1 = s[..., 1:] > 0
     cross = obs[..., :-1] & obs[..., 1:] & (pos0 != pos1)
     # first crossing along the run; selections via one-hot over the 7-wide
-    # run axis (take_along_axis lowers to slow element gathers on TPU)
+    # run axis (elementwise, in place of take_along_axis element gathers)
     order = jnp.arange(7, 0, -1, dtype=jnp.int32)[None, None]  # 7..1
     score = jnp.where(cross, order, 0)
     i = jnp.argmax(score, axis=-1)                               # [V, 64]
@@ -235,12 +233,11 @@ def splat_render(
     # depth comes straight from the z-buffer's 12-bit quantized key (sub-mm
     # at 4 m range — far below the voxel size) plus a refinement gather-free
     # path; attributes collapse to ONE winner gather of a pre-packed RGB
-    # word per sample (the former five [H*W] element gathers dominated the
-    # fixed cost of this renderer: ~4 ms at 320x240)
+    # word per sample (in place of five [H*W] element gathers)
     zq_win = (zbuf >> 19).astype(jnp.float32) * (params.depth_max / 4094.0)
     depth = jnp.where(hit, zq_win, jnp.nan).reshape(H, W)
     if params.use_color:
-        # normalize + quantize per SAMPLE (VPU), pack into one int32
+        # normalize + quantize per SAMPLE (elementwise), pack into one int32
         w_lo = jnp.maximum(extras_lo[0], 1e-12)
         r8 = jnp.clip(extras_lo[1] / w_lo, 0.0, 1.0) * 255.0
         g8 = jnp.clip(extras_lo[2] / w_lo, 0.0, 1.0) * 255.0

@@ -3,7 +3,7 @@
 The reference pages voxel blocks outside an active radius to CPU RAM in 1 m^3
 chunks with a round-robin sweep (``CUDASceneRepChunkGrid.{h,cpp,cu}``,
 disabled by default for BundleFusion because paging conflicts with
-de-integration). The TPU design keeps the same contract — bound device
+de-integration). This design keeps the same contract — bound device
 memory by the active working set — but with the sorted-key table it is a
 bulk set operation, not per-bucket linked-list surgery:
 

@@ -1,9 +1,9 @@
-"""Block-sparse TSDF voxel table — the TPU-native voxel hash.
+"""Block-sparse TSDF voxel table: a sorted-key voxel hash.
 
 The reference implements a bucketed spatial hash with linked-list collision
 chains, per-bucket mutexes and an atomic free-block heap
 (``DepthSensing/VoxelUtilHashSDF.h:56-350``). None of that maps to XLA's
-static-shape, race-free model. The TPU design replaces it with a **sorted key
+static-shape, race-free model. This design replaces it with a **sorted key
 table**:
 
 - ``keys``:   int32[capacity], packed block coordinates, sorted ascending,
@@ -23,12 +23,10 @@ weight (so de-integration is a plain subtraction; the reference instead blends
 colors 0.2/0.8 on integrate and inverts the blend on de-integrate,
 ``CUDASceneRepHashSDF.cu:420-521`` — premultiplied storage makes
 integrate/de-integrate exactly inverse operations, which the reference's color
-path is not). Color is stored channel-major ``[N, 3, BLOCK_VOLUME]`` so a
-block row reshapes freely to the (8, 64)-tiled layout the Pallas integrate
-kernel wants. Payload arrays carry one extra hidden **dummy row** at index
-``num_blocks``: scatters of invalid/overflow entries land there instead of
-needing drop semantics, and the Pallas kernel routes skipped grid programs'
-row DMA to it.
+path is not). Color is stored channel-major, one flat row of
+``3 * BLOCK_VOLUME`` per block. Payload arrays carry one extra hidden
+**dummy row** at index ``num_blocks``: reads of padding entries land there
+instead of needing masked gathers.
 
 Block coordinates live in [-GRID_HALF, GRID_HALF)^3 and pack into 30 bits.
 """
@@ -52,12 +50,12 @@ class VoxelBlockTable(NamedTuple):
     """Pytree of arrays holding the sparse TSDF volume.
 
     Beyond the sorted key index, the table keeps a **slot-major inverse map**
-    (``slot_keys``: payload row -> packed block coords) and a ``high_water``
-    occupancy bound. The fused TSDF kernel (``apply_pallas.py``) iterates
-    payload rows ``[0, high_water)`` linearly — sequential DMA at HBM
-    bandwidth, no gather/scatter — reading each row's coordinates from
-    ``slot_keys``. Slots are handed out ascending (and freed slots are reused
-    first), so ``high_water`` stays close to the live block count.
+    (``slot_keys``: payload row -> packed block coords, ``slot_geo``: the
+    same as float block coords + live flag) and a ``high_water`` occupancy
+    bound, so the TSDF update (``apply_ops.py``) selects its rows by a
+    frustum test over payload rows without touching the key index. Slots
+    are handed out ascending (and freed slots are reused first), so
+    ``high_water`` stays close to the live block count.
     """
 
     keys: jax.Array       # int32[capacity], sorted, EMPTY_KEY padded
@@ -65,20 +63,16 @@ class VoxelBlockTable(NamedTuple):
     sdf: jax.Array        # float32[num_blocks + 1, BLOCK_VOLUME] (+1 dummy row)
     weight: jax.Array     # float32[num_blocks + 1, BLOCK_VOLUME]
     color: jax.Array      # float32[num_blocks + 1, 3 * BLOCK_VOLUME] premultiplied by
-                          # weight, channel-major blocks (r | g | b). Flat 2D
-                          # (not [*, 3, V]) because XLA's TPU layout pads a
-                          # rank-3 [N, 3, V] array's sublane dim 3 -> 8 (2.6x
-                          # HBM waste) and the fused kernel DMAs rows whole.
+                          # weight, channel-major blocks (r | g | b)
     free_list: jax.Array  # int32[num_blocks] stack of free slots
     free_count: jax.Array # int32[] number of free slots
     num_alloc_failures: jax.Array  # int32[] overflow accounting
     slot_keys: jax.Array  # int32[num_blocks + 1] packed coords per slot (EMPTY = unused)
     slot_geo: jax.Array   # float32[num_blocks + 1, 128]: per-slot block coords
-                          # in block units (lanes 0-2), live flag (lane 3), pad.
-                          # 128-lane rows so the fused kernel DMAs them like
-                          # payload and reads (TILE, 1) vectors — a scalar
-                          # per-block geometry loop measured 40 us/tile.
+                          # in block units (lanes 0-2), live flag (lane 3), pad
     high_water: jax.Array # int32[] upper bound on occupied slot indices
+    row_overflows: jax.Array  # int32[] TSDF op batches whose active rows
+                              # exceeded the row capacity (run in extra passes)
 
     @property
     def capacity(self) -> int:
@@ -90,13 +84,6 @@ class VoxelBlockTable(NamedTuple):
 
 
 def create_table(capacity: int, num_blocks: int) -> VoxelBlockTable:
-    # The fused Pallas sweep (apply_pallas.py) DMAs payload rows in chunks
-    # of TILE=128; round the payload up so ANY requested size works (the
-    # reference default 200000 is not 128-aligned). Extra rows start on the
-    # free list like all others and are plain additional capacity.
-    from bundlefusion_tpu.tsdf.apply_pallas import TILE as _TILE
-
-    num_blocks = ((num_blocks + _TILE - 1) // _TILE) * _TILE
     return VoxelBlockTable(
         keys=jnp.full((capacity,), EMPTY_KEY, jnp.int32),
         slots=jnp.full((capacity,), -1, jnp.int32),
@@ -112,6 +99,7 @@ def create_table(capacity: int, num_blocks: int) -> VoxelBlockTable:
         slot_keys=jnp.full((num_blocks + 1,), EMPTY_KEY, jnp.int32),
         slot_geo=jnp.zeros((num_blocks + 1, 128), jnp.float32),
         high_water=jnp.asarray(0, jnp.int32),
+        row_overflows=jnp.asarray(0, jnp.int32),
     )
 
 
@@ -238,13 +226,9 @@ def allocate_packed(
         hit = (blocked[bpos] == packed_raw) & (packed_raw != EMPTY_KEY)
         packed_raw = jnp.where(hit, EMPTY_KEY, packed_raw)
 
-    # Presence check by binary search on the (always-sorted) key table.
-    # History: with the pre-dedup candidate set (~37K queries) searchsorted's
-    # ~17 sequential gather rounds cost ~10 ms and a fused sort-merge of
-    # [table keys | queries] won; after run-dedup the query set is only
-    # ``compact`` (~2K) wide, where 17 x 2K element gathers (~0.4 ms) beat
-    # re-sorting the 131K+ key table every frame (~8 ms measured at the
-    # bench operating point).
+    # Presence check by binary search on the (always-sorted) key table:
+    # after run-dedup the query set is only ``compact`` wide, so ~17 rounds
+    # of small gathers replace re-sorting the whole key table every frame.
     cap = table.capacity
     qpos = jnp.clip(jnp.searchsorted(table.keys, packed_raw), 0, cap - 1)
     present = (table.keys[qpos] == packed_raw) & (packed_raw != EMPTY_KEY)
@@ -252,9 +236,8 @@ def allocate_packed(
     num_missing = jnp.sum(missing.astype(jnp.int32))
 
     # The cond carries ONLY the small index arrays (keys/slots + scalars) —
-    # every branch OUTPUT is materialized by XLA, so routing the 67 MB
-    # ``slot_geo`` (or the payload) through it costs full copies (~4.7 ms
-    # measured per no-merge frame at the bench config). The slot-map
+    # every branch OUTPUT is materialized by XLA, so routing ``slot_geo``
+    # (or the payload) through it would copy it. The slot-map
     # updates happen unconditionally below via drop-scatters: when nothing
     # is missing every index is out of bounds and the scatter is a cheap
     # no-op pass-through.
@@ -324,8 +307,8 @@ def allocate_packed(
         table.num_alloc_failures,
         table.high_water,
     )
-    # slot-major inverse map + per-slot geometry rows for the fused kernel:
-    # block coords (in block units — the kernel scales by block size) +
+    # slot-major inverse map + per-slot geometry rows for the row selection:
+    # block coords (in block units — readers scale by block size) +
     # live flag. Unconditional: out-of-bounds rows drop.
     slot_keys = table.slot_keys.at[scatter_to].set(packed_vals, mode="drop")
     coords = unpack_key(packed_vals).astype(jnp.float32)
@@ -394,7 +377,7 @@ def free_blocks(table: VoxelBlockTable, free_mask) -> VoxelBlockTable:
     ].set(jnp.where(free_mask, table.slots, table.num_blocks + 1), mode="drop")
     uncleared = jnp.maximum(num_free - FREE_COMPACT, 0)
     # freed slots leave the slot-major inverse map (all freed slots, not just
-    # the payload-cleared prefix: the linear kernel must skip them)
+    # the payload-cleared prefix: the row selection must skip them)
     freed_to = jnp.where(free_mask, table.slots, table.num_blocks + 1)
     slot_keys = table.slot_keys.at[freed_to].set(EMPTY_KEY, mode="drop")
     slot_geo = table.slot_geo.at[freed_to].set(0.0, mode="drop")
@@ -412,100 +395,6 @@ def free_blocks(table: VoxelBlockTable, free_mask) -> VoxelBlockTable:
     )
 
 
-def defrag_prefix(table: VoxelBlockTable, window: int) -> VoxelBlockTable:
-    """Sort the first ``window`` payload rows by packed block key.
-
-    Why: the fused sweep kernel (``apply_pallas.py``) samples images with
-    per-chunk one-hot windows whose cost scales with each 8-slot chunk's
-    projected u-span. Slots are handed out in allocation order, so chunks
-    mix blocks from different frames' frontiers and fall back to the
-    full-width sampling paths (measured at the bench operating point:
-    148 of 288 chunks full-width, 204 GMACs/frame vs ~40 for coherent
-    strips). Key-sorting the payload restores the x-strip property the
-    kernel's windows were designed for (packed key = z | y | x with x
-    fastest), and compacts live rows to a dense prefix (fewer tiles).
-
-    ``window`` is static (a jit specialization): XLA row gathers on the
-    (8, 128)-tiled payload amplify HBM traffic ~8x, so defragging the full
-    200K-block table every time would cost ~40 ms. Slots are allocated
-    ascending and re-compacted by every defrag, so occupancy stays inside a
-    window ~= live blocks + allocations since the last defrag; callers size
-    it from the scene scale. (Not yet wired into the engine's frame loop —
-    reachable from tests and scripts/predict_defrag.py, which measures the
-    payoff; engine integration is pending.)
-    Rows at ``window`` and beyond are left untouched (a partial defrag is
-    still valid — their keys/slots/free entries are preserved).
-
-    No reference counterpart: the reference's bucketed hash has no payload
-    -order-sensitive consumer (CUDA gathers per voxel); this is TPU-native
-    maintenance for the linear-sweep design.
-    """
-    N = table.num_blocks
-    window = min(window, N)
-    if window <= 0:
-        # nothing to sort; also avoids an inverted jnp.clip bound below
-        return table
-    sk = table.slot_keys[:window]
-    order = jnp.argsort(sk)                      # EMPTY (int32 max) sorts last
-    sk_sorted = sk[order]
-    live_sorted = sk_sorted != EMPTY_KEY
-    n_live = jnp.sum(live_sorted.astype(jnp.int32))
-
-    # payload: gather rows into key order; dead rows zero (this also clears
-    # any stale payload from frees beyond FREE_COMPACT)
-    lf = live_sorted[:, None].astype(jnp.float32)
-    sdf = table.sdf.at[:window].set(table.sdf[:window][order] * lf)
-    weight = table.weight.at[:window].set(table.weight[:window][order] * lf)
-    color = table.color.at[:window].set(table.color[:window][order] * lf)
-    slot_geo = table.slot_geo.at[:window].set(table.slot_geo[:window][order] * lf)
-    slot_keys = table.slot_keys.at[:window].set(
-        jnp.where(live_sorted, sk_sorted, EMPTY_KEY)
-    )
-
-    # key index: keys stay put; a key whose old slot was inside the window
-    # moves to its rank among the window's live keys (sk_sorted is unique
-    # ascending, so rank == searchsorted position)
-    in_window = (table.slots >= 0) & (table.slots < window) & (
-        table.keys != EMPTY_KEY
-    )
-    new_pos = jnp.clip(
-        jnp.searchsorted(sk_sorted, table.keys), 0, window - 1
-    ).astype(jnp.int32)
-    slots = jnp.where(in_window, new_pos, table.slots)
-
-    # free list: window slots [n_live, window) are now the free ones; keep
-    # free slots >= window (compacted to the bottom of the stack) and stack
-    # the window's free slots on top, descending so slot n_live pops first
-    idx = jnp.arange(table.free_list.shape[0], dtype=jnp.int32)
-    valid_entry = idx < table.free_count
-    big = valid_entry & (table.free_list >= window)
-    n_big = jnp.sum(big.astype(jnp.int32))
-    big_rank = jnp.cumsum(big.astype(jnp.int32)) - 1
-    fl = jnp.full_like(table.free_list, -1).at[
-        jnp.where(big, big_rank, N)
-    ].set(jnp.where(big, table.free_list, -1), mode="drop")
-    n_small = window - n_live
-    new_fc = n_big + n_small
-    in_small = (idx >= n_big) & (idx < new_fc)
-    fl = jnp.where(in_small, window - 1 - (idx - n_big), fl)
-
-    # occupancy: if nothing lives beyond the window the prefix is compact
-    any_beyond = jnp.any(table.slot_keys[window:N] != EMPTY_KEY)
-    hw = jnp.where(any_beyond, table.high_water, n_live).astype(jnp.int32)
-
-    return table._replace(
-        slots=slots,
-        sdf=sdf,
-        weight=weight,
-        color=color,
-        free_list=fl,
-        free_count=new_fc,
-        slot_keys=slot_keys,
-        slot_geo=slot_geo,
-        high_water=hw,
-    )
-
-
 def garbage_collect(table: VoxelBlockTable, weight_thresh: float = 0.0) -> VoxelBlockTable:
     """Free blocks whose max voxel weight <= thresh.
 
@@ -513,9 +402,7 @@ def garbage_collect(table: VoxelBlockTable, weight_thresh: float = 0.0) -> Voxel
     which frees blocks with max weight 0 (de-integrated to emptiness).
 
     The per-block max runs in SLOT order (a sequential reduction over the
-    payload at HBM bandwidth); only the [num_blocks] summary is then gathered
-    into key order. Gathering payload *rows* by key order instead read whole
-    (8, 128) tiles per row — 8x HBM amplification, ~40 ms at 131K blocks.
+    payload); only the [num_blocks] summary is then gathered into key order.
     """
     maxw_by_slot = jnp.max(table.weight, axis=-1)  # [num_blocks + 1], slot order
     live_by_slot = table.slot_keys != EMPTY_KEY

@@ -6,7 +6,7 @@ filters, misc, solve + iterations, sensor processing, re-integration,
 reconstruction, visualization), kept in separate local/global vectors with
 averaged printout and CSV export (``TimingLog.cpp: printAllTimings``).
 
-On TPU, times are host wall-clock around ``jax.block_until_ready`` sync
+Times are host wall-clock around ``jax.block_until_ready`` sync
 points; async-dispatched stages therefore attribute to the stage that forced
 the sync — same semantics as the reference's cudaEvent timers around stream
 syncs.
@@ -35,7 +35,7 @@ class FrameTiming:
     time_re_integrate: float = 0.0
     time_reconstruct: float = 0.0
     time_visualize: float = 0.0
-    # fused-program stages (TPU engine: one dispatch per phase)
+    # fused-program stages (one dispatch per phase)
     time_frame_step: float = 0.0
     time_submap_step: float = 0.0
 

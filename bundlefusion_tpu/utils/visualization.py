@@ -20,7 +20,9 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
 def draw_keypoints(color: np.ndarray, pos: np.ndarray, valid: np.ndarray,
                    scale: Optional[np.ndarray] = None) -> np.ndarray:
     """Keypoint overlay (``printKey``)."""
-    import cv2
+    from bundlefusion_tpu.io import require_cv2
+
+    cv2 = require_cv2()
 
     img = _to_u8(color).copy()
     for i in range(len(pos)):
@@ -34,7 +36,9 @@ def draw_keypoints(color: np.ndarray, pos: np.ndarray, valid: np.ndarray,
 
 def draw_matches(color_i, color_j, pos_i, pos_j, mask) -> np.ndarray:
     """Side-by-side match visualization (``printMatch``)."""
-    import cv2
+    from bundlefusion_tpu.io import require_cv2
+
+    cv2 = require_cv2()
 
     a = _to_u8(color_i)
     b = _to_u8(color_j)
@@ -56,7 +60,9 @@ def draw_matches(color_i, color_j, pos_i, pos_j, mask) -> np.ndarray:
 
 def depth_to_color(depth: np.ndarray, d_min: float = 0.1, d_max: float = 4.0) -> np.ndarray:
     """Depth colormap image (``convertDepthToColorSpace`` analog)."""
-    import cv2
+    from bundlefusion_tpu.io import require_cv2
+
+    cv2 = require_cv2()
 
     t = (np.nan_to_num(depth, nan=d_max) - d_min) / max(d_max - d_min, 1e-6)
     u8 = np.clip(t * 255, 0, 255).astype(np.uint8)
@@ -70,7 +76,9 @@ def normals_to_color(normals: np.ndarray) -> np.ndarray:
 
 
 def save_image(path: str, img: np.ndarray):
-    import cv2
+    from bundlefusion_tpu.io import require_cv2
+
+    cv2 = require_cv2()
 
     cv2.imwrite(path, img[..., ::-1] if img.ndim == 3 else img)
 

@@ -2,12 +2,12 @@
 //
 // The reference's offline input path decompresses per-frame zlib uint16
 // depth + JPEG color on dedicated prefetch threads (SensorDataReader.cpp
-// RGBDFrameCacheRead). This library provides the TPU build's equivalent:
+// RGBDFrameCacheRead). This library provides this engine's equivalent:
 // multithreaded zlib inflation + uint16->float depth conversion, exposed
 // through a C ABI consumed via ctypes (bundlefusion_tpu/io/native.py).
-// JPEG color decode stays on cv2 (libjpeg-turbo) which is already native.
+// JPEG color decode stays in Python (cv2, imported only for JPEG input).
 //
-// Build: make -C native   (produces libsenscodec.so)
+// Built on first use by io/native.py, or by hand: make -C native
 
 #include <cmath>
 #include <cstdint>

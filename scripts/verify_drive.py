@@ -2,7 +2,6 @@
 import os
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_cc")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.2")
 

@@ -1,7 +1,7 @@
 """JAX greedy-Kabsch filter vs the NumPy oracle port of the reference CPU
 filter (``tests/oracles/match_filter.py`` <-> ``cuda_kabschReference.h:429``).
 
-The TPU filter deliberately replaces the reference's strip-worst inner loop
+The JAX filter deliberately replaces the reference's strip-worst inner loop
 with accept/reject against the current consensus (ops/filters.py docstring),
 so per-match sets can differ on adversarial inputs. The contract both must
 meet, and what these tests check:

@@ -16,7 +16,7 @@ from bundlefusion_tpu.parallel.map_sharded import (
     make_sharded_apply,
     shard_table_payload,
 )
-from bundlefusion_tpu.tsdf.apply_pallas import apply_tsdf_ops_xla
+from bundlefusion_tpu.tsdf.apply_ops import apply_tsdf_ops_xla
 from bundlefusion_tpu.tsdf.integrate import TsdfParams, candidate_keys
 from bundlefusion_tpu.tsdf.table import allocate_packed, create_table
 

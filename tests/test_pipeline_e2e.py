@@ -1,8 +1,8 @@
 """End-to-end pipeline test on a tiny synthetic sequence.
 
-The TPU analog of the reference's built-in evaluation (run a sequence,
-check ATE RMSE + mesh exists — SURVEY.md §4). Tiny shapes keep the 2-CPU CI
-box tractable; the bench exercises full resolution on TPU.
+The analog of the reference's built-in evaluation (run a sequence,
+check ATE RMSE + mesh exists — SURVEY.md §4). Tiny shapes keep the CPU
+run tractable; ``chip_smoke.py`` runs full resolution on the GPU.
 """
 
 import numpy as np

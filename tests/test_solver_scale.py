@@ -3,7 +3,7 @@ keyframe counts (zParametersBundlingDefault.txt:30-32 caps the global
 problem at 1200 keyframes with up to ~10^6 corrs). The former [C, N]
 one-hot incidence design was O(C*N) per PCG step; the pair-reduced design
 is O(P*N) with P = active pairs, so a 512-pose / 49K-corr problem stays
-CPU-tractable here and HBM-trivial on TPU."""
+CPU-tractable here and small in device memory."""
 
 import numpy as np
 import jax.numpy as jnp

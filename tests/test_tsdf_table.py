@@ -120,88 +120,3 @@ def test_garbage_collect(rng):
     kept = np.asarray(lookup_blocks(t, jnp.asarray(uniq[:3])))
     assert (kept >= 0).all()
     assert all(v == 0 for v in check_invariants(t).values())
-
-
-def test_defrag_prefix(rng):
-    """defrag_prefix sorts live payload rows by key, compacts occupancy,
-    preserves every lookup/payload value, and keeps invariants clean —
-    including across a later free + re-alloc cycle."""
-    from bundlefusion_tpu.tsdf.table import defrag_prefix
-
-    t = make_table(cap=1024, blocks=256)
-    # three allocation batches (interleaved key ranges -> allocation-order
-    # slots are NOT key-sorted), plus a free to punch holes
-    c1 = rng.integers(-8, 0, size=(40, 3)).astype(np.int32)
-    c2 = rng.integers(0, 8, size=(40, 3)).astype(np.int32)
-    t = allocate(t, jnp.asarray(c1), jnp.ones(40, bool))
-    t = allocate(t, jnp.asarray(c2), jnp.ones(40, bool))
-    n_live_before = int(num_occupied(t))
-    # give each block a payload fingerprint keyed by its packed coords
-    keys_by_slot = np.asarray(t.slot_keys[:256])
-    live = keys_by_slot != int(EMPTY_KEY)
-    fp = np.where(live, keys_by_slot % 1000, 0).astype(np.float32)
-    t = t._replace(
-        sdf=t.sdf.at[:256].set(jnp.asarray(fp)[:, None] * jnp.ones((1, 512))),
-        weight=t.weight.at[:256].set(
-            jnp.asarray(live.astype(np.float32))[:, None] * jnp.ones((1, 512))
-        ),
-    )
-    # free a key-range slice (punches holes in the slot space)
-    free_mask = (t.keys != EMPTY_KEY) & (np.asarray(t.keys) % 7 == 0)
-    n_freed = int(jnp.sum(free_mask.astype(jnp.int32)))
-    t = free_blocks(t, free_mask)
-
-    t2 = defrag_prefix(t, 256)
-    assert all(v == 0 for v in check_invariants(t2).values()), check_invariants(t2)
-    n_live = n_live_before - n_freed
-    assert int(num_occupied(t2)) == n_live
-    # compact key-sorted prefix
-    sk = np.asarray(t2.slot_keys[:256])
-    assert (sk[:n_live] != int(EMPTY_KEY)).all()
-    assert (np.diff(sk[:n_live]) > 0).all()
-    assert (sk[n_live:] == int(EMPTY_KEY)).all()
-    assert int(t2.high_water) == n_live
-    # payload rows moved with their keys
-    sdf2 = np.asarray(t2.sdf[:256, 0])
-    w2 = np.asarray(t2.weight[:256, 0])
-    np.testing.assert_array_equal(sdf2[:n_live], sk[:n_live] % 1000)
-    assert (w2[:n_live] == 1.0).all()
-    assert (w2[n_live:] == 0.0).all()
-    # lookups unchanged for every surviving key
-    for arr in (c1, c2):
-        uniq = np.unique(arr, axis=0)
-        packed = np.asarray(pack_block_coords(jnp.asarray(uniq)))
-        kept = packed[packed % 7 != 0]
-        slots = np.asarray(lookup_blocks(t2, jnp.asarray(unpack_key(jnp.asarray(kept)))))
-        assert (slots >= 0).all() and (slots < n_live).all()
-    # freed keys stay absent
-    # a later allocation reuses the compact tail and stays consistent
-    c3 = rng.integers(20, 28, size=(20, 3)).astype(np.int32)
-    t3 = allocate(t2, jnp.asarray(c3), jnp.ones(20, bool))
-    assert all(v == 0 for v in check_invariants(t3).values()), check_invariants(t3)
-    uniq3 = np.unique(c3, axis=0)
-    slots3 = np.asarray(lookup_blocks(t3, jnp.asarray(uniq3)))
-    assert (slots3 >= 0).all()
-    # new slots fill the compact tail first
-    assert slots3.min() >= n_live and slots3.max() < n_live + len(uniq3)
-
-
-def test_defrag_prefix_partial_window(rng):
-    """A window smaller than occupancy defrags only the prefix and leaves
-    the rest valid."""
-    from bundlefusion_tpu.tsdf.table import defrag_prefix
-
-    t = make_table(cap=1024, blocks=256)
-    c = rng.integers(-10, 10, size=(200, 3)).astype(np.int32)
-    t = allocate(t, jnp.asarray(c), jnp.ones(200, bool))
-    n_live = int(num_occupied(t))
-    assert n_live > 140  # need occupancy beyond the window
-    t2 = defrag_prefix(t, 128)
-    assert all(v == 0 for v in check_invariants(t2).values()), check_invariants(t2)
-    assert int(num_occupied(t2)) == n_live
-    sk = np.asarray(t2.slot_keys[:128])
-    lv = sk != int(EMPTY_KEY)
-    assert (np.diff(sk[lv]) > 0).all()
-    uniq = np.unique(c, axis=0)
-    slots = np.asarray(lookup_blocks(t2, jnp.asarray(uniq)))
-    assert (slots >= 0).all()
